@@ -1,7 +1,7 @@
 """Checkpoint / resume of solver state.
 
 The reference has no checkpointing (SURVEY.md §5: persistence is limited
-to output viewers); for a production TPU deployment, solver state is
+to output viewers); for a production deployment, solver state is
 (mesh tree, partition parameters, current iterate / interface vectors) —
 all trivially serializable.  Format: a single ``.npz`` with the tree
 serialized via its binary format plus the patch arrays.

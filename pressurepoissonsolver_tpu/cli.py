@@ -22,7 +22,7 @@ from typing import Optional
 def build_parser(D: int) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=f"Solve the {D}D steady Poisson problem "
-        "(TPU-native pressurePoissonSolver)"
+        "(JAX pressurePoissonSolver)"
     )
     p.add_argument("--mesh", type=str, default=None, help="mesh tree file (.bin)")
     p.add_argument("--uniform", type=int, default=None, metavar="L",
@@ -69,8 +69,7 @@ def build_parser(D: int) -> argparse.ArgumentParser:
     p.add_argument("--comm", type=str, default="auto",
                    choices=["auto", "pjit", "halo"],
                    help="multi-chip communication schedule (with --shards); "
-                   "auto = the cut-face halo engine (pjit is ~3x slower at "
-                   "8 devices, docs/DISTRIBUTED.md)")
+                   "auto = the cut-face halo engine")
     p.add_argument("-t", "--tolerance", type=float, default=1e-12)
     p.add_argument("--max_iterations", type=int, default=1000)
     p.add_argument("--dtype", type=str, default="float64",

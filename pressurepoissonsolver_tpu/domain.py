@@ -1,6 +1,6 @@
 """Domain layer: extraction of per-level patch tables from the tree.
 
-This is the TPU-native replacement of the reference's ``PatchInfo`` /
+This is the replacement of the reference's ``PatchInfo`` /
 ``Domain`` / ``ThundereggDomGen`` machinery (SURVEY.md §2.2): instead of a
 pointer graph of per-patch records, each multigrid level is a set of flat
 NumPy arrays indexed by a dense patch slot, ready to be consumed by batched

@@ -1,6 +1,6 @@
 """FAC geometric multigrid: inter-level transfers and V/W cycles.
 
-TPU-native re-design of the reference's ``GMG::*`` layer
+A re-design of the reference's ``GMG::*`` layer
 (SURVEY.md §2.7).  Transfers between a fine and a coarse
 :class:`~pressurepoissonsolver_tpu.ops.level_ops.Level` are static
 gather/scatter-adds driven by host-precomputed parent-slot tables — the
@@ -22,7 +22,6 @@ unrolled in Python so the whole cycle traces into a single XLA program.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
@@ -48,8 +47,9 @@ class CycleOpts:
     interpolator: str = "constant"  # "constant" (DrctIntp) | "linear" (TriLinIntp)
     # Exact coarse solve: stop the hierarchy once a level has at most this
     # many DOF and invert its assembled operator once (a single matmul per
-    # cycle — far cheaper on TPU than descending a deep tail of tiny
-    # levels, and a stronger coarse correction than smoothing sweeps).
+    # cycle in place of a deep tail of tiny, latency-bound levels, and a
+    # stronger coarse correction than smoothing sweeps).  The default of
+    # 4096 has not been tuned on the GPU.
     coarse_direct_max_dof: int = 4096
     coarse_direct: bool = True
     # FAC active-set relaxation: classical FAC (McCormick) relaxes each
@@ -63,16 +63,16 @@ class CycleOpts:
     # whole level) — "full" reproduces that.
     fac_smoothing: str = "full"  # "full" | "active"
     fac_active_ring: int = 1
-    # Per-level sweep split: coarse-level visits are launch-latency-bound
-    # on TPU (each op costs ~50-100 us in-graph regardless of level size),
-    # so trimming sweeps below the finest level cuts cycle wall-clock far
-    # more than it weakens the correction.  0 = use pre_sweeps everywhere.
+    # Per-level sweep split: coarse-level visits are latency-bound (each
+    # op costs about the same regardless of level size), so trimming
+    # sweeps below the finest level can cut cycle wall-clock more than it
+    # weakens the correction.  0 = use pre_sweeps everywhere.
     coarse_pre_sweeps: int = 0
 
 
 def _axis_matmul(M: jnp.ndarray, x: jnp.ndarray, ax: int) -> jnp.ndarray:
     """Apply an n×n matrix along array axis ``ax`` of ``x`` via broadcasting
-    matmuls (MXU-tiled; no moveaxis for the two minor axes)."""
+    matmuls (no moveaxis for the two minor axes)."""
     if ax == x.ndim - 1:
         return jnp.matmul(x, M.T, precision=jax.lax.Precision.HIGHEST)
     if ax == x.ndim - 2:
@@ -153,10 +153,9 @@ class Transfer:
         ]
         self._wrstr = [jnp.asarray(_restrict_matrix(n, h)) for h in range(2)]
         # f32 fast path: per-orthant transfers in Kronecker form — one
-        # [n^2, n^2] matmul on perfectly lane-tiled flat operands (2D), or
-        # a (y,x) Kronecker matmul plus a z contraction (3D).  Measured
-        # 748 -> 76 us per restrict at bench size (scripts/
-        # interp_experiment.py); the f64 path keeps the per-axis form.
+        # [n^2, n^2] matmul on flat operands (2D), or a (y,x) Kronecker
+        # matmul plus a z contraction (3D); the f64 path keeps the
+        # per-axis form.
         from .ops.level_ops import kron_max_n
 
         self._use_kron = (
@@ -205,8 +204,8 @@ class Transfer:
         self._pt_fine = jnp.asarray(sel) if len(sel) else None
         self._pt_parent = jnp.asarray(pslots[sel]) if len(sel) else None
 
-        # --- gather-form tables (no device scatters: element-granular
-        # scatter-adds are ~20-30x slower than row gathers on TPU) ---------
+        # --- gather-form tables (row gathers, no element-granular device
+        # scatter-adds) ------------------------------------------------------
         Pf, Pc = fine.P, coarse.P
         # restriction: per coarse patch, the fine slot of each orthant child
         # (Pf = zero-pad row) and the pass-through fine slot
@@ -282,99 +281,14 @@ class Transfer:
             blk = _axis_matmul(M, blk, 1 + (D - 1 - a))
         return blk.reshape(blk_flat.shape[0], -1)
 
-    def _build_pool_tables(self) -> None:
-        """Tables of the large-n pooled restriction (see
-        ``_pooled_restrict``): the pair-averaging matrix and the parent
-        row-assembly gather (32-lane rows, no transpose — the rank-5
-        transpose form measured 7.3 ms at 42M DOF)."""
-        n = self.n
-        h = n // 2
-        Pf, Pc = self.fine.P, self.coarse.P
-        A = np.zeros((n, h), dtype=np.float32)
-        for j in range(h):
-            A[2 * j, j] = 0.5
-            A[2 * j + 1, j] = 0.5
-        self._pool_A = A
-        cs = np.asarray(self._child_slot)  # [Pc, 4], pad = Pf
-        # x-sibling pooled-patch gathers in (p, hy)-major row order: the
-        # hy blocks then sit adjacent, so after a minor-axis concat of the
-        # west/east quadrants the result RESHAPES straight into the parent
-        # layout — no narrow-row gather (1.1M 32-lane rows measured 21 ms)
-        # and no rank-5 transpose (measured ~6 ms)
-        idx_w = cs[:, [0, 2]].reshape(-1)  # child (hy, hx=0)
-        idx_e = cs[:, [1, 3]].reshape(-1)  # child (hy, hx=1)
-        self._pool_gw = jnp.asarray(idx_w.astype(np.int32))
-        self._pool_ge = jnp.asarray(idx_e.astype(np.int32))
-
-    def _pooled_restrict(self, fine_u: jnp.ndarray) -> jnp.ndarray:
-        """Large-n f32 restriction: pool the whole fine level once with
-        two per-axis averaging matmuls, then assemble parent quadrants
-        with ONE 32-lane row gather (row order (p, hy, jy, hx) reshapes
-        straight into the parent layout).  The per-orthant matmul chain
-        measured 2.9 ms at 42M DOF (four gathered chains); this form does
-        one chain + one gather."""
-        n = self.n
-        h = n // 2
-        Pf = fine_u.shape[0]
-        Pc = self.coarse.P
-        cells = self._cells
-        if not hasattr(self, "_pool_gw"):
-            self._build_pool_tables()
-        A = jnp.asarray(self._pool_A)
-        # pool both axes once over the whole fine level (one matmul chain)
-        hp = jax.lax.Precision.HIGHEST
-        px = jnp.matmul(
-            fine_u.reshape(Pf * n, n), A, precision=hp
-        ).reshape(Pf, n, h)
-        pooled = jnp.einsum("pyx,yk->pkx", px, A, precision=hp)
-        pooled_pad = jnp.concatenate(
-            [pooled.reshape(Pf, h * h),
-             jnp.zeros((1, h * h), dtype=fine_u.dtype)], axis=0
-        )
-        # (p, hy)-major west/east quadrant rows; minor concat interleaves
-        # the x halves, and the row order already stacks the y halves
-        w = pooled_pad[self._pool_gw].reshape(Pc * 2, h, h)
-        e = pooled_pad[self._pool_ge].reshape(Pc * 2, h, h)
-        # pad-sum interleave (fuses into one output pass, unlike the
-        # rank-3 minor concat)
-        assembled = (
-            jnp.pad(w, ((0, 0), (0, 0), (0, h)))
-            + jnp.pad(e, ((0, 0), (0, 0), (h, 0)))
-        ).reshape(Pc, cells)
-        fine_flat = jnp.concatenate(
-            [fine_u.reshape(Pf, cells),
-             jnp.zeros((1, cells), dtype=fine_u.dtype)], axis=0
-        )
-        out = (assembled + fine_flat[self._pt_slot]).reshape(
-            (-1,) + fine_u.shape[1:]
-        )
-        return self.coarse._constrain_p(out)
-
     def restrict(self, fine_u: jnp.ndarray) -> jnp.ndarray:
         """Cell-averaging restriction into a new coarse-level vector.
 
         Matmul form: per orthant, gather the full child patches (as flat
-        ``[.., n^D]`` rows — rank-3 gathers are ~8x slower on TPU) by the
+        ``[.., n^D]`` rows) by the
         coarse-side child table and accumulate them through the
         averaging-placement matrices."""
         D, n = self.D, self.n
-        # NEGATIVE RESULT (round 5, kept for the record): the pooled
-        # restriction (_pooled_restrict) — global per-axis pooling + pair
-        # gathers + fused pad interleave — measures 4.6 ms at 42M DOF vs
-        # 2.9 ms for the per-orthant matmul chains below, despite moving
-        # ~2x less algorithmic data: the (p,hy)-major quadrant gathers and
-        # the half-width interleave passes dominate.  PPS_POOL_RESTRICT=1
-        # re-enables it for experiments.
-        if (
-            D == 2
-            and not self._use_kron
-            and fine_u.dtype == jnp.float32
-            and n % 2 == 0
-            and os.environ.get("PPS_POOL_RESTRICT") == "1"
-            and jax.default_backend() == "tpu"
-            and getattr(self.coarse, "_psh", None) is None
-        ):
-            return self._pooled_restrict(fine_u)
         Pf = fine_u.shape[0]
         cells = self._cells
         fine_flat = jnp.concatenate(
@@ -508,7 +422,7 @@ class GMGCycle:
     def attach_sharded_active(self) -> None:
         """Upgrade the sharded active-set fallback (masked full sweeps) to
         per-shard subset smoothers — call after the levels were wrapped in
-        halo ``ShardedLevel``s (VERDICT r2 #5)."""
+        halo ``ShardedLevel``s."""
         from .parallel.halo import ShardedActiveSmoother, ShardedLevel
 
         for k in range(1, len(self.levels)):

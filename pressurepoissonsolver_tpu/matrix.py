@@ -1,6 +1,6 @@
 """Explicit matrix assembly for the composite operator.
 
-TPU-native replacement of the reference's L6 matrix layer
+Replacement of the reference's L6 matrix layer
 (``MatrixHelper``/``MatrixHelper2d``/``SchurMatrixHelper*`` — SURVEY.md
 §2.6): instead of hand-written boundary-closure stencil tables, the global
 CSR matrix is composed algebraically from the same host tables the
@@ -171,11 +171,11 @@ def _dense_case_templates(tables: IfaceTables) -> np.ndarray:
 def assemble_schur(level) -> sp.csr_matrix:
     """The explicit Schur interface matrix ``A_S = I - S`` by probing.
 
-    TPU-native analog of the reference's probed Schur assembly with
+    Analog of the reference's probed Schur assembly with
     orientation canonicalization (``SchurMatrixHelper.cpp:24-205``,
     ``SchurMatrixHelper2d.cpp:130-190``): a patch's response to a unit
     interface trace depends only on its (Neumann bits, spacings) class, so
-    interfaces are deduplicated into those classes (the TPU-form of the
+    interfaces are deduplicated into those classes (the batched form of the
     reference's rotation/flip ``Block`` algebra), *all* ``2D·m`` unit-trace
     probes of every class run in a single jitted ``lax.map`` of batched
     spectral solves (no per-probe host round-trips), and the m×m response
@@ -342,8 +342,8 @@ def pbm_matvec(level):
     probed Schur matrix kept as deduplicated m×m coefficient blocks plus
     (row, col, block-id) pointers instead of CRS.
 
-    TPU-native apply: entries are sorted by block id so each distinct
-    block is ONE ``[E_c, m] @ [m, m]`` MXU matmul over the gathered
+    Batched apply: entries are sorted by block id so each distinct
+    block is ONE ``[E_c, m] @ [m, m]`` matmul over the gathered
     column traces, and the row reduction is the same iface-major padded
     gather-sum the interpolation pipeline uses (no scatter-adds).  Blocks
     are deduplicated by (probe side, patch class, source side, case) —

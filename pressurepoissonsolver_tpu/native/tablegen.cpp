@@ -1,7 +1,7 @@
 // Native host-side table generation: level extraction and interface
 // enumeration for large meshes.
 //
-// This is the TPU framework's "graph builder" runtime: it turns the
+// This is the framework's "graph builder" runtime: it turns the
 // refinement tree into the flat patch/interface index tables the device
 // kernels consume.  The Python implementations in domain.py / iface.py
 // are the reference semantics (and remain as fallback); this C++ path

@@ -3,7 +3,7 @@
 Reference ``PatchSolvers/BiCGStabSolver.h:524-624`` runs a scalar BiCGStab
 per patch as a fallback for operators the DST/DCT diagonalization cannot
 handle (variable coefficients, Helmholtz with spatially varying shift...).
-The TPU-native form runs *all* patches simultaneously: the per-patch
+The batched form runs *all* patches simultaneously: the per-patch
 scalars (rho, alpha, omega) become ``[P]`` vectors, and converged patches
 are frozen with masks inside one ``lax.while_loop``.
 """

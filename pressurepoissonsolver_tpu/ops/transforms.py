@@ -4,8 +4,8 @@ The reference diagonalizes each patch's Laplacian with FFTW real-to-real
 transforms (``PatchSolvers/FftwPatchSolver.h:111-171``) or, equivalently,
 with explicit DCT/DST matrices applied by BLAS ``dgemv``
 (``PatchSolvers/DftPatchSolver.h:226-347``).  The matrix form is the
-natural TPU formulation: a batched patch solve becomes a handful of large
-matmuls on the MXU.  We use the reference's matrix conventions exactly
+natural accelerator formulation: a batched patch solve becomes a handful
+of large matmuls.  We use the reference's matrix conventions exactly
 (scale factor ``(2/n)**D`` applied after the inverse transform).
 
 Transform selection per axis, by the patch's physical-BC bits

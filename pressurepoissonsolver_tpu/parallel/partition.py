@@ -1,6 +1,6 @@
 """Static partitioning: Morton (Z-order) space-filling-curve ordering.
 
-TPU-native replacement for the reference's Zoltan hypergraph partitioning
+Replacement for the reference's Zoltan hypergraph partitioning
 with migration (``ThundereggDomGen.h:223-648``): patch slots are ordered
 along a Morton curve so a static block partition over the mesh axis gives
 compact, face-sharing shards — the same locality objective as the

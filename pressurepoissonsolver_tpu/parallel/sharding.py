@@ -2,13 +2,14 @@
 
 The reference's only distribution axis is the patch set (SPMD domain
 decomposition over MPI ranks with Zoltan balancing and VecScatter halo
-exchange; SURVEY.md §2.2).  The TPU-native equivalent implemented here:
+exchange; SURVEY.md §2.2).  The equivalent implemented here:
 
 * a 1D ``jax.sharding.Mesh`` with axis ``"p"`` (patches);
 * every ``[P, ...]`` patch-field array sharded on its leading axis;
 * interface (gamma) vectors sharded on the interface axis;
 * all gathers/scatter-adds in the level ops use *global* patch indices, so
-  under ``jit`` XLA partitions them and inserts the ICI collectives that
+  under ``jit`` XLA partitions them and inserts the collectives (NCCL over NVLink on
+  GPUs) that
   replace the reference's VecScatters — no MPI-style code needed;
 * the static block partition of patch slots replaces Zoltan migration
   (patch slots are already ordered by tree id ≈ Morton order, giving the

@@ -9,8 +9,9 @@ configuration.
 On CPU (JAX_PLATFORMS=cpu + xla_force_host_platform_device_count) this
 validates the sharded execution path over N *virtual* devices sharing one
 host's cores — useful for correctness and comm-schedule comparison, NOT a
-hardware scaling claim.  On a real multi-chip TPU slice the same code runs
-over ICI.
+hardware scaling claim.  On the GPUs of one host the same code runs its
+exchanges as NCCL collectives over NVLink.  The mesh is the in-repo
+``refined_tree(2, 5, 2)`` refined ``--divide`` times.
 """
 
 import argparse
@@ -39,18 +40,13 @@ def main():
     import numpy as np
 
     from pressurepoissonsolver_tpu.domain import DomainHierarchy
-    from pressurepoissonsolver_tpu.geometry import Tree, refined_tree
+    from pressurepoissonsolver_tpu.geometry import refined_tree
     from pressurepoissonsolver_tpu.parallel.sharding import make_mesh
     from pressurepoissonsolver_tpu.problems import get_problem, init_problem
     from pressurepoissonsolver_tpu.solver import PoissonSolver, SolveOptions
 
     dtype = jnp.float32 if args.dtype == "float32" else jnp.float64
-    try:
-        tree = Tree.from_file(
-            "/root/reference/apps/2d/meshes/multi_refine_8.bin", 2
-        )
-    except FileNotFoundError:
-        tree = refined_tree(2, 5, 2)
+    tree = refined_tree(2, 5, 2)
     for _ in range(args.divide):
         tree.refine_leaves()
 

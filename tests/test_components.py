@@ -133,33 +133,6 @@ def test_profiling_op_report():
     assert "gnnz_per_s" in rep["apply"]
 
 
-def test_face_placement_matrix_matches_pad_spread():
-    """The 2D placement-matmul fold (TPU fast path) is algebraically the
-    pad-spread fold: G routes each (side, k) trace onto its boundary
-    cell, corners receiving both of their sides' contributions."""
-    import numpy as np
-
-    from pressurepoissonsolver_tpu.ops.level_ops import (
-        _face_placement_matrix,
-    )
-
-    n = 8
-    rng = np.random.default_rng(0)
-    gf = rng.standard_normal((3, 4, n))
-    h2 = rng.uniform(1.0, 2.0, (3, 2))
-    G = np.asarray(_face_placement_matrix(n))
-    s = 2.0 * np.stack([h2[:, 0], h2[:, 0], h2[:, 1], h2[:, 1]], axis=1)
-    gvec = ((gf * s[..., None]).reshape(3, 4 * n) @ G).reshape(3, n, n)
-    # pad-spread reference
-    ref = np.zeros((3, n, n))
-    for p in range(3):
-        ref[p, :, 0] += 2.0 * h2[p, 0] * gf[p, 0]
-        ref[p, :, n - 1] += 2.0 * h2[p, 0] * gf[p, 1]
-        ref[p, 0, :] += 2.0 * h2[p, 1] * gf[p, 2]
-        ref[p, n - 1, :] += 2.0 * h2[p, 1] * gf[p, 3]
-    assert np.abs(gvec - ref).max() < 1e-12
-
-
 def test_factored_denominator_matches_dense():
     """The factored per-axis eigen rows materialize the same denominator
     as the old dense per-cell table (f64 sums, cast after)."""

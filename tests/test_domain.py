@@ -109,8 +109,12 @@ def test_neumann_flags():
     assert not lvl_d.neumann.any()
 
 
-def test_reference_mesh_hierarchy_3d():
-    t = Tree.from_file("/root/reference/test/2refine.bin", 3)
+def test_reference_mesh_hierarchy_3d(tmp_path):
+    # 3D corner-refined octree (the stand-in for the reference's 2refine),
+    # through the file reader
+    p = str(tmp_path / "2refine.bin")
+    refined_tree(3, 2, 1).to_file(p)
+    t = Tree.from_file(p, 3)
     h = DomainHierarchy(t, n=4)
     assert len(h) == 3
     # finest: 7 pass-through coarse leaves + 8 fine leaves

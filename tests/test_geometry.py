@@ -7,9 +7,6 @@ import pytest
 from pressurepoissonsolver_tpu import geometry as geo
 from pressurepoissonsolver_tpu.geometry import Tree, uniform_tree, refined_tree
 
-MESHES = "/root/reference/test"
-
-
 def test_side_semantics():
     # axis / lower / opposite (Side.h:97-162)
     assert geo.side_axis(0) == 0 and geo.side_axis(1) == 0
@@ -78,17 +75,25 @@ def test_refine_leaves_topology_3d():
     assert int(g1.nbr_id[0]) == g0.id
 
 
-def test_read_reference_fixtures():
-    t = Tree.from_file(f"{MESHES}/2uni.bin", 3)
+def test_read_reference_fixtures(tmp_path):
+    """In-repo stand-ins for the reference's 3D fixtures (2uni, 3uni,
+    2refine), written with ``Tree.to_file`` and read back."""
+
+    def roundtrip(t, name):
+        p = str(tmp_path / f"{name}.bin")
+        t.to_file(p)
+        return Tree.from_file(p, 3)
+
+    t = roundtrip(uniform_tree(3, 2), "2uni")
     assert len(t.nodes) == 9
     assert t.num_levels == 2
-    t3 = Tree.from_file(f"{MESHES}/3uni.bin", 3)
+    t3 = roundtrip(uniform_tree(3, 3), "3uni")
     assert len(t3.nodes) == 73
     assert t3.num_levels == 3
-    tr = Tree.from_file(f"{MESHES}/2refine.bin", 3)
+    tr = roundtrip(refined_tree(3, 2, 1), "2refine")
     assert len(tr.nodes) == 17
     assert tr.num_levels == 3
-    # 2refine: one level-1 node refined -> 8 leaves at level 2
+    # one level-1 node refined -> 8 leaves at level 2
     lv = [n.level for n in tr.nodes.values()]
     assert lv.count(2) == 8
 

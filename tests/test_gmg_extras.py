@@ -141,8 +141,7 @@ def test_active_smoother_matches_masked_full_sweep():
 
 def test_fac_active_solve_converges_like_full():
     """The FAC active-set cycle preconditions as well as relax-everywhere:
-    same iteration count on an adaptive solve (measured equal on the bench
-    mesh too, docs/PERFORMANCE.md round 2)."""
+    same iteration count on an adaptive solve."""
     t = refined_tree(2, 4, 2)
     h = DomainHierarchy(t, n=8)
     f_np, exact = init_problem(h.finest, get_problem("trig", 2))

@@ -11,6 +11,17 @@ from pressurepoissonsolver_tpu.domain import extract_level
 from pressurepoissonsolver_tpu.geometry import Tree, refined_tree, uniform_tree
 from pressurepoissonsolver_tpu.iface import build_iface_tables
 
+
+def _through_file(tree):
+    """``tree`` written with ``Tree.to_file`` and read back."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "t.bin")
+        tree.to_file(p)
+        return Tree.from_file(p, tree.D)
+
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native tablegen unavailable"
 )
@@ -22,7 +33,7 @@ pytestmark = pytest.mark.skipif(
         (lambda: uniform_tree(2, 3), 2),
         (lambda: refined_tree(2, 3, 2), 2),
         (lambda: refined_tree(3, 2, 1), 3),
-        (lambda: Tree.from_file("/root/reference/test/2refine.bin", 3), 3),
+        (lambda: _through_file(refined_tree(3, 3, 1)), 3),
     ],
 )
 @pytest.mark.parametrize("neumann", [False, True])

@@ -29,11 +29,10 @@ def _schur_solve(divide: int, prec, n=8, tol=1e-10):
 
 
 def test_schur_gmg_iterations_mesh_independent():
-    """Iterations flat (±3) over a 16x DOF sweep — the VERDICT r3 #3 gate.
+    """Iterations flat (±3) over a 16x DOF sweep.
 
     Without an AMG-class preconditioner the interface iterations grow
-    ~O(1/h) (docs/PERFORMANCE.md round 2: 613 unpreconditioned / 385
-    block-Jacobi at 655k DOF)."""
+    ~O(1/h) (613 unpreconditioned / 385 block-Jacobi at 655k DOF)."""
     iters = []
     for divide in (1, 2, 3):  # 64x DOF span (measured: 5, 6, 6)
         it, rep = _schur_solve(divide, "gmg")
@@ -88,7 +87,7 @@ def test_schur_gmg_sharded_halo():
 
 def test_monitored_solve_history():
     """--monitor surface: per-iteration relative residuals reach the
-    tolerance and shrink overall (VERDICT r3 #9)."""
+    tolerance and shrink overall."""
     t = uniform_tree(2, 3)
     h = DomainHierarchy(t, n=8)
     s = PoissonSolver(h, SolveOptions(tol=1e-10))
@@ -116,7 +115,7 @@ def test_monitored_schur_gmg_history():
     assert int(res.iterations) <= 15
 
 
-# ---- Schur path under Neumann BCs (VERDICT r4 #4) -------------------------
+# ---- Schur path under Neumann BCs --------------------------------------------
 # The reference composes --schur with --neumann (apps/3d/steady.cpp:330-342
 # mean-shift + :336-441 Schur branch; all-Neumann patch solves pin the DC
 # mode, FftwPatchSolver.h:197).  The interface system (I - S) inherits the

@@ -381,7 +381,7 @@ def test_public_sharded_schur_solve():
 
 
 def test_sharded_active_set_smoothing_matches_masked():
-    """VERDICT r2 #5: per-shard subset-compute FAC smoothing (halo engine)
+    """Per-shard subset-compute FAC smoothing (halo engine)
     gives the same cycle as both the masked-sweep fallback and the
     single-device ActiveSmoother path, bit-for-tolerance."""
     from pressurepoissonsolver_tpu.gmg import CycleOpts, build_gmg
@@ -391,10 +391,8 @@ def test_sharded_active_set_smoothing_matches_masked():
 
     ndev = 8
     mesh = make_mesh(ndev)
-    from pressurepoissonsolver_tpu.geometry import Tree
-
     # needs pass-through-heavy coarse levels for the masks to be proper
-    t = Tree.from_file("/root/reference/apps/2d/meshes/multi_refine_8.bin", 2)
+    t = refined_tree(2, 4, 2)
     opts = CycleOpts(pre_sweeps=2, fac_smoothing="active")
 
     # single-device reference cycle (subset-compute ActiveSmoother)

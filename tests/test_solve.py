@@ -102,8 +102,8 @@ def test_patch_granularity_invariance():
     """Cutting the same composite grid into 4x fewer, 2x bigger patches
     leaves the discretization identical: same-level interfaces are exact
     halos (ghost = u_nbr), so only patch-boundary PLACEMENT changes, not
-    the assembled operator.  This is the property that lets the TPU build
-    choose its patch granularity for hardware efficiency (wider face rows,
+    the assembled operator.  This is the property that lets the solver
+    choose its patch granularity for device efficiency (wider face rows,
     fewer gather rows) independently of the reference's n=16 convention."""
     t16 = refined_tree(2, 3, 2)
     t16.refine_leaves()
@@ -191,14 +191,19 @@ def test_3d_second_order():
     assert 2.5 < ratio < 6.0, ratio
 
 
+#: uniform octrees standing in for the reference's 2uni/3uni/4uni fixtures
+UNI_LEVELS = {"2uni": 2, "3uni": 3, "4uni": 4}
+
+
 @pytest.mark.parametrize(
     "mesh,n",
     [("2uni", 8), ("3uni", 8), ("4uni", 4)],
 )
 def test_3d_reference_uniform_meshes(mesh, n):
-    """Converged solutions on the reference fixture meshes to <1e-10
-    (BASELINE 'match converged solutions on 2uni/2refine/3uni/4uni')."""
-    t = Tree.from_file(f"/root/reference/test/{mesh}.bin", 3)
+    """Converged solutions on uniform octrees of the reference fixtures'
+    shapes to <1e-10 (BASELINE 'match converged solutions on
+    2uni/2refine/3uni/4uni')."""
+    t = uniform_tree(3, UNI_LEVELS[mesh])
     h = DomainHierarchy(t, n=n)
     s = PoissonSolver(h, SolveOptions(tol=1e-11))
     prob = get_problem("trig", 3)
@@ -214,7 +219,7 @@ def test_3d_second_order_on_reference_meshes():
     """Error halves quadratically from 3uni to 4uni at fixed n."""
     errs = []
     for mesh in ("3uni", "4uni"):
-        t = Tree.from_file(f"/root/reference/test/{mesh}.bin", 3)
+        t = uniform_tree(3, UNI_LEVELS[mesh])
         h = DomainHierarchy(t, n=4)
         s = PoissonSolver(h, SolveOptions(tol=1e-11))
         f, exact = init_problem(h.finest, get_problem("trig", 3))
@@ -227,7 +232,7 @@ def test_3d_second_order_on_reference_meshes():
 
 
 def test_3d_reference_mesh_2refine():
-    t = Tree.from_file("/root/reference/test/2refine.bin", 3)
+    t = refined_tree(3, 2, 1)  # stand-in for the reference's 2refine
     h = DomainHierarchy(t, n=4)
     s = PoissonSolver(h, SolveOptions(tol=1e-11))
     prob = get_problem("trig", 3)
